@@ -84,7 +84,7 @@ def test_train_chunk_sorted_path_huge_vocab():
     arr, n = core.pad_tokens(data, 32)
     merges = jnp.full((8, 3), core.PAD, jnp.int32)
     occ = jnp.zeros((8,), jnp.int32)
-    _, _, merges, _, k, _ = core.train_chunk(
+    _, _, merges, _, k = core.train_chunk(
         arr, n, merges, occ, jnp.int32(0), vocab_size=V, max_rounds=8
     )
     got = [tuple(r) for r in np.asarray(merges[: int(k)]).tolist()]
@@ -140,7 +140,7 @@ def test_train_chunk_matches_oracle():
     arr, n = core.pad_tokens(data, 4096)
     merges = jnp.full((V - 256, 3), core.PAD, jnp.int32)
     occ = jnp.zeros((V - 256,), jnp.int32)
-    toks_out, length, merges, occ, k, _ = core.train_chunk(
+    toks_out, length, merges, occ, k = core.train_chunk(
         arr, n, merges, occ, jnp.int32(0), vocab_size=V, max_rounds=V - 256
     )
     want = oracle.train(data, V)
@@ -213,7 +213,7 @@ def test_train_chunk_lazy_matches_oracle():
     ub = core.pair_histogram(arr, V)
     merges = jnp.full((V - 256, 3), core.PAD, jnp.int32)
     occ = jnp.zeros((V - 256,), jnp.int32)
-    toks_out, length, ub, merges, occ, k, _ = core.train_chunk_lazy(
+    toks_out, length, ub, merges, occ, k = core.train_chunk_lazy(
         arr, n, ub, merges, occ, jnp.int32(0), vocab_size=V, max_rounds=V - 256
     )
     want = oracle.train(data, V)

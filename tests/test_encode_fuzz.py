@@ -1,20 +1,20 @@
-"""Adversarial merge-table fuzz for the fused encode path (VERDICT r4 #7).
+"""Adversarial merge-table fuzz for the scheduled batched encode.
 
-group_merges' chain-free simultaneous-application argument
-(ops/pallas/encode.py) is subtle: a wrong grouping predicate silently
-corrupts the serving path. This fuzz drives RANDOM merge tables — duplicate
-pairs, a == b members, references to in-group minted tokens, b -> a chains,
-re-minted ids, out-of-range ids up to the u16 cap — over random docs through
-group_merges + encode_rows_pallas (interpret mode) and checks every row
-against the oracle's sequential replay (basic_tokenizer.zig:71-88
-semantics).
+schedule_merges' commuting argument (ops/encode_batch.py) and
+merge_pass_multi's group contract (ops/core.py) are subtle: a wrong
+independence predicate silently corrupts the serving path. This fuzz
+drives RANDOM merge tables — duplicate pairs, a == b members, references
+to minted tokens, b -> a chains, re-minted ids, out-of-range ids up to the
+u16 cap — over random docs through schedule_merges + encode_batch
+and checks every row against the oracle's sequential replay
+(basic_tokenizer.zig:71-88 semantics).
 """
 
 import numpy as np
 import pytest
 
 from zigbpe_tpu.models import oracle
-from zigbpe_tpu.ops.pallas import encode as pe
+from zigbpe_tpu.ops import encode_batch as eb
 
 
 def _adversarial_table(rng, n_merges):
@@ -72,29 +72,23 @@ def test_fuzz_grouped_encode_vs_oracle(seed):
     for i, d in enumerate(docs):
         buf[i, : len(d)] = np.frombuffer(d, np.uint8)
 
-    cap = int(rng.choice([4, 8, 16]))
-    # alternate between consecutive grouping and the reorder-with-
-    # equivalence scheduler — both must reproduce sequential replay
-    grouper = pe.schedule_merges if seed % 2 else pe.group_merges
-    # Pad the grouped table to a FIXED group count so all seeds share one
-    # compiled program per cap (padded groups have glen == 0 and PAD rows:
-    # provable no-ops). 50 distinct interpret-mode compilations otherwise
-    # bloat XLA CPU process state until a later large compile segfaults.
-    gt, gl = grouper(np.asarray(table, np.int32), cap=cap)
+    # alternate schedule caps: tight caps split groups the DAG allows,
+    # wide ones pack every ready independent entry together
+    cap = [4, 8, 16, 32][seed % 4]
+    # Pad the scheduled table to a FIXED group count so all seeds share one
+    # compiled program per cap (padded groups are PAD rows: provable
+    # no-ops), instead of one compilation per seed.
+    gt, _ = eb.schedule_merges(np.asarray(table, np.int32), cap=cap)
     PMAX = 32
     assert gt.shape[0] <= PMAX
     gt_p = np.full((PMAX, cap, 3), -1, np.int32)
     gt_p[: gt.shape[0]] = gt
-    gl_p = np.zeros((PMAX,), np.int32)
-    gl_p[: gl.shape[0]] = gl
-    out, lens = pe.encode_rows_grouped(
-        jnp.asarray(buf), jnp.asarray(gt_p), jnp.asarray(gl_p), interpret=True
-    )
+    out, lens = eb.encode_batch(jnp.asarray(buf), jnp.asarray(gt_p))
     out, lens = np.asarray(out), np.asarray(lens)
     for i, d in enumerate(docs):
         got = out[i, : lens[i]].tolist()
         want = oracle.encode(d, table)
         assert got == want, (
-            f"seed {seed} doc {i} cap {cap}: kernel diverges from oracle for "
+            f"seed {seed} doc {i} cap {cap}: encode diverges from oracle for "
             f"table {table}"
         )

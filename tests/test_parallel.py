@@ -85,27 +85,20 @@ def test_dp_early_stop(mesh8):
     assert got == oracle.train(b"ab" * 2, 400)
 
 
-def test_dp_pallas_kernel_path_matches_oracle(mesh8):
-    # the fused Pallas merge under shard_map (interpret mode; block-aligned
-    # per-shard capacity), incl. a cross-boundary merge and an a==b round
-    # (which recompacts and takes the XLA parity branch in-line)
+def test_dp_large_shards_match_oracle(mesh8):
+    # 32K-token shards (incl. cross-boundary merges and a==b rounds)
+    # through train_dp_tokens
     rng = np.random.default_rng(11)
     data = bytes(rng.integers(97, 103, 40000, dtype=np.uint8))
     tokens = dp.shard_corpus(data, mesh8, per_shard_capacity=32768)
-    got = dp.train_dp_tokens(
-        tokens, len(data), 290, mesh8, use_pallas=True, interpret=True,
-        chunk_rounds=16,
-    )
+    got = dp.train_dp_tokens(tokens, len(data), 290, mesh8, chunk_rounds=16)
     assert got == oracle.train(data, 290)
 
 
-def test_dp_pallas_kernel_path_parity_runs(mesh8):
-    # single-byte runs spanning shard boundaries force a==b rounds through
-    # the kernel path's parity fallback
+def test_dp_parity_runs_across_shards(mesh8):
+    # single-byte runs spanning shard boundaries: a==b rounds resolve
+    # greedy parity on global pair indices
     data = b"a" * 9000 + b"bc" * 600 + b"a" * 7000
     tokens = dp.shard_corpus(data, mesh8, per_shard_capacity=32768)
-    got = dp.train_dp_tokens(
-        tokens, len(data), 272, mesh8, use_pallas=True, interpret=True,
-        chunk_rounds=8,
-    )
+    got = dp.train_dp_tokens(tokens, len(data), 272, mesh8, chunk_rounds=8)
     assert got == oracle.train(data, 272)

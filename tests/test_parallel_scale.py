@@ -133,3 +133,36 @@ def test_sharded_ub_init_subblocked_matches_unsharded(mesh8):
     want = np.zeros((Vp, V), np.int32)
     np.add.at(want, (ids[:-1], ids[1:]), 1)
     assert np.array_equal(np.asarray(whole), want)
+
+
+def test_sharded_ub_bounds_sound_and_new_token_exact(mesh8):
+    """After a chunk of rounds on the row-sharded table, every entry bounds
+    the live pair count from above, and the newest token's row and column
+    hold exact counts (they are written from the merged stream)."""
+    rng = np.random.default_rng(14)
+    data = bytes(rng.integers(97, 103, 3000, dtype=np.uint8))
+    V, D, rounds = 300, mesh8.devices.size, 12
+    Vp = -(-V // D) * D
+    tokens = dp.shard_corpus(data, mesh8)
+    ub = dp._init_ub_sharded_jit(
+        tokens, vocab_size=V, rows_per_shard=Vp // D, max_row=256, mesh=mesh8
+    )
+    M = V - 256
+    toks, ub, merges, _, k, _, _ = dp._dp_chunk_jit(
+        tokens, ub,
+        dp._replicate(np.full((M, 3), -1, np.int32), mesh8),
+        dp._replicate(np.zeros((M,), np.int32), mesh8),
+        dp._replicate(np.asarray(0, np.int32), mesh8),
+        vocab_size=V, max_rounds=rounds, mesh=mesh8, sharded_ub=True,
+    )
+    assert int(k) == rounds
+    got = [tuple(int(v) for v in row) for row in np.asarray(merges)[:rounds]]
+    assert got == oracle.train(data, 256 + rounds)
+    stream = dp._gather_valid_stream(toks, D).astype(np.int64)
+    exact = np.zeros((Vp, V), np.int64)
+    np.add.at(exact, (stream[:-1], stream[1:]), 1)
+    ub = np.asarray(ub)
+    assert (ub >= exact).all()
+    newest = 256 + rounds - 1
+    assert np.array_equal(ub[newest], exact[newest])
+    assert np.array_equal(ub[:, newest], exact[:, newest])

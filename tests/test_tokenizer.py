@@ -133,7 +133,7 @@ def test_large_vocab_sorted_path_with_checkpoint(tmp_path):
 def test_deep_vocab_lazy_membership_mode(tmp_path):
     # vocab in (1024, LAZY_VOCAB_MAX]: the lazy trainer's membership-mode
     # group extensions (free argmax accepted off the verified set) — the
-    # config-2/deep-regime path, otherwise only exercised on TPU. Running
+    # config-2/deep-regime path, otherwise only run at deployment size. Running
     # 1000+ device rounds on the CPU mesh takes minutes, so the device
     # trainer resumes from a host-trained checkpoint just below the
     # vocab-1024 mode boundary and runs only the deep tail.

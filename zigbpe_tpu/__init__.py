@@ -1,43 +1,51 @@
-"""zigbpe-tpu: a TPU-native byte-level BPE tokenizer framework.
+"""zigbpe: a byte-level BPE tokenizer library in JAX.
 
 Capability parity with dbtreasure/zig-bpe (train / encode / decode /
-merges.txt serde / profiling), re-designed TPU-first: dense scatter-add
-pair histograms, on-device argmax with deterministic tie-break, vectorized
-leftmost-greedy merge passes, fixed-shape compaction, and data-parallel
-training over a jax.sharding.Mesh with psum-reduced counts.
+merges.txt serde / profiling), with the hot loops on the accelerator: pair
+counting and lazy upper-bound selection with a deterministic tie-break,
+vectorized leftmost-greedy merge passes, fixed-shape compaction, and
+data-parallel training over a jax.sharding.Mesh with psum-reduced counts.
 """
 
 import os as _os
+import pathlib as _pathlib
+
+# The persistent compilation cache's fixed home when nothing else names
+# one: inside the checkout (listed in .gitignore), so every process of a
+# checkout finds the executables the others compiled.
+_CHECKOUT = _pathlib.Path(__file__).resolve().parent.parent
+COMPILE_CACHE_DIR = _CHECKOUT / ".jax_cache"
+
+# Compiles at least this long are cached: the shrink schedule's smaller
+# capacities compile in 0.5-1 s, under JAX's default floor of 1 s.
+CACHE_MIN_COMPILE_SECS = 0.5
 
 
 def _configure_compile_cache() -> None:
-    """Point JAX at a persistent compilation cache (the reference compiles
-    once, build.zig:3-34; the shrink schedule here compiles one executable
-    per power-of-two capacity, and on a remote-compile TPU backend a cold
-    cascade costs tens of seconds — cache it across processes instead).
+    """Point JAX at a persistent compilation cache: the shrink schedule
+    compiles one executable per power-of-two capacity, so a cold process
+    pays a cascade of compiles that a cache absorbs.
 
-    Opt out with ZIGBPE_NO_COMPILE_CACHE=1; relocate with
-    ZIGBPE_COMPILE_CACHE=<dir>.
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is JAX's own setting and
+    nothing is changed. Otherwise compiles from
+    :data:`CACHE_MIN_COMPILE_SECS` up are cached, in the directory the
+    application configured before import if it did, else in
+    :data:`COMPILE_CACHE_DIR` when the package runs from a checkout
+    (an installed package gets no default directory).
     """
-    if _os.environ.get("ZIGBPE_NO_COMPILE_CACHE"):
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    try:
-        import jax
+    import jax
 
-        cache = _os.environ.get("ZIGBPE_COMPILE_CACHE")
-        if cache is None:
-            # respect a cache dir the host application configured before
-            # importing this package; only install the default when unset
-            if jax.config.jax_compilation_cache_dir is not None:
-                return
-            cache = _os.path.join(
-                _os.environ.get("XDG_CACHE_HOME", _os.path.expanduser("~/.cache")),
-                "zigbpe_jax",
-            )
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass  # never block import on cache plumbing
+    floor = jax.config.jax_persistent_cache_min_compile_time_secs
+    if floor > CACHE_MIN_COMPILE_SECS:
+        jax.config.update(
+            "jax_persistent_cache_min_compile_time_secs", CACHE_MIN_COMPILE_SECS
+        )
+    if not jax.config.jax_compilation_cache_dir and (
+        _CHECKOUT / "pyproject.toml"
+    ).is_file():
+        jax.config.update("jax_compilation_cache_dir", str(COMPILE_CACHE_DIR))
 
 
 _configure_compile_cache()

@@ -2,8 +2,8 @@
 
 The reference ships a dormant raylib window (tokenizer_gui.zig:5-76): a
 text-input box and a display box that mirrors the input; it never calls the
-tokenizer and its only call site is commented out (main.zig:42). The
-TPU framework's analogue is a curses terminal UI with the same two-box
+tokenizer and its only call site is commented out (main.zig:42). This
+library's analogue is a curses terminal UI with the same two-box
 layout and input handling (printable ASCII + backspace,
 tokenizer_gui.zig:35-50); unlike the reference it can optionally tokenize
 live when given a merge table.

@@ -47,19 +47,16 @@ def _encode_capacity(n: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _encode_jit(use_pallas: bool = False):
+def _encode_jit():
     import jax
 
     from ..ops import core
 
-    return jax.jit(functools.partial(core.encode_replay, use_pallas=use_pallas))
+    return jax.jit(core.encode_replay)
 
 
 @functools.lru_cache(maxsize=None)
 def _encode_batch_jit():
-    # XLA fallback path only; the Pallas path goes through the cached
-    # grouped table + encode_rows_grouped in encode_batch (re-grouping the
-    # table per call would be silent trace-time overhead).
     import jax
 
     from ..ops import encode_batch as eb
@@ -68,13 +65,13 @@ def _encode_batch_jit():
 
 
 class BasicTokenizer:
-    """Host-facing tokenizer model backed by the TPU device path."""
+    """Host-facing tokenizer model backed by the JAX device path."""
 
     def __init__(self, merges: Optional[Iterable[Sequence[int]]] = None):
         self.merges: List[Merge] = [tuple(int(v) for v in m) for m in merges or []]
         self.time_stats = TimeStats()
         self._device_merges = None  # cached (M,3) device array
-        self._grouped_merges = None  # cached (gtable, glens) device arrays
+        self._grouped_merges = None  # cached scheduled (P, cap, 3) table
 
     # ------------------------------------------------------------------ train
 
@@ -139,13 +136,10 @@ class BasicTokenizer:
 
         if self._device_merges is None:
             self._device_merges = jnp.asarray(np.asarray(self.merges, dtype=np.int32))
-        from ..ops import pallas as pallas_pkg
 
         capacity = _encode_capacity(max(len(text), 1))
         tokens, _ = core.pad_tokens(text, capacity)
-        out, length = _encode_jit(pallas_pkg.merge_kernel_supported(capacity))(
-            tokens, self._device_merges
-        )
+        out, length = _encode_jit()(tokens, self._device_merges)
         return np.asarray(out)[: int(length)].tolist()
 
     def encode_batch(self, docs, row_length: Optional[int] = None) -> List[List[int]]:
@@ -162,32 +156,14 @@ class BasicTokenizer:
 
         from ..ops import encode_batch as eb
 
-        if self._device_merges is None:
-            self._device_merges = jnp.asarray(np.asarray(self.merges, dtype=np.int32))
-        from ..ops import pallas as pallas_pkg
+        if self._grouped_merges is None:
+            gtable, _ = eb.schedule_merges(np.asarray(self.merges, np.int32))
+            self._grouped_merges = jnp.asarray(gtable)
 
-        if row_length:
-            L = row_length
-        else:
-            # Tight power-of-two capacity; the Pallas encode kernel needs
-            # >= 8 rows (1024 lanes), so the floor applies only when the
-            # kernel will actually run — the XLA fallback keeps the tight
-            # capacity instead of padding short-doc batches up to 16x.
-            L = _encode_capacity(max((len(d) for d in docs), default=1))
-            if pallas_pkg.encode_kernel_supported(max(L, 1024)):
-                L = max(L, 1024)
+        # tight power-of-two row capacity unless the caller fixes it
+        L = row_length or _encode_capacity(max((len(d) for d in docs), default=1))
         tokens, _ = eb.pad_batch(docs, L)
-        if pallas_pkg.encode_kernel_supported(L):
-            from ..ops.pallas import encode as pe
-
-            if self._grouped_merges is None:
-                gt, gl = pe.schedule_merges(
-                    np.asarray(self.merges, np.int32), cap=32
-                )
-                self._grouped_merges = (jnp.asarray(gt), jnp.asarray(gl))
-            out, lengths = pe.encode_rows_grouped(tokens, *self._grouped_merges)
-        else:
-            out, lengths = _encode_batch_jit()(tokens, self._device_merges)
+        out, lengths = _encode_batch_jit()(tokens, self._grouped_merges)
         out = np.asarray(out)
         lengths = np.asarray(lengths)
         return [out[i, : lengths[i]].tolist() for i in range(len(docs))]

@@ -2,7 +2,7 @@
 
 This module is the *semantic contract*: a deliberately simple, loop-based
 implementation of the reference tokenizer's observable behavior
-(reference: /root/reference/src/basic_tokenizer.zig). The JAX/Pallas device
+(reference: src/basic_tokenizer.zig of zig-bpe). The JAX device
 implementations are tested against this oracle, and the oracle itself is
 tested against the reference's committed golden artifact ``merges.txt``.
 

@@ -2,7 +2,7 @@
 // reference-semantics host tokenizer engine (train / encode replay).
 //
 // The reference implements its entire runtime in native code (Zig); these
-// are the C++ equivalents for the host-side paths of the TPU framework:
+// are the C++ equivalents for the host-side paths of the JAX library:
 // the data loader (utils/read_file.zig:3-13 analogue) and a single-core
 // tokenizer engine with the exact observable semantics of
 // basic_tokenizer.zig (train :140-205, encode :71-88), used for host

@@ -1,13 +1,20 @@
 """ctypes binding for the native host runtime (fastio.cpp).
 
-Builds lazily with g++ on first use (cached as libzigbpe.so next to the
-source); everything degrades gracefully to the Python/NumPy paths when no
-compiler is available.
+Builds lazily with g++ on first use; everything degrades gracefully to the
+Python/NumPy paths when no compiler is available.
+
+The library is compiled with ``-march=native``, so a library built on one
+machine may hold instructions another machine's CPU lacks. Its file name
+therefore carries a key of the source, the compiler flags and the target
+the compiler resolves ``-march=native`` to on this host
+(``libzigbpe-<key>.so`` next to the source): a library built elsewhere has
+another key and is never loaded; this host builds its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import pathlib
 import subprocess
@@ -16,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 
 _HERE = pathlib.Path(__file__).parent
 _SRC = _HERE / "fastio.cpp"
-_LIB = _HERE / "libzigbpe.so"
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -25,19 +32,39 @@ _tried = False
 Merge = Tuple[int, int, int]
 
 
-def build(force: bool = False) -> bool:
-    """Compile fastio.cpp -> libzigbpe.so. Returns success."""
-    if _LIB.exists() and not force and _LIB.stat().st_mtime >= _SRC.stat().st_mtime:
-        return True
+def build_key() -> str:
+    """Hash of the source, the flags and this host's resolved target."""
+    target = subprocess.run(
+        ["g++", "-march=native", "-Q", "--help=target"],
+        check=True, capture_output=True, timeout=60,
+    ).stdout
+    h = hashlib.sha256()
+    for part in (_SRC.read_bytes(), " ".join(_FLAGS).encode(), target):
+        h.update(part)
+        h.update(b"\0")
+    return h.hexdigest()[:16]
+
+
+def lib_path(key: str) -> pathlib.Path:
+    return _HERE / f"libzigbpe-{key}.so"
+
+
+def build(force: bool = False) -> Optional[pathlib.Path]:
+    """Compile fastio.cpp for this host unless a library with this host's
+    key exists. Returns the library's path, or None without a compiler."""
     try:
+        lib = lib_path(build_key())
+        if lib.exists() and not force:
+            return lib
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             str(_SRC), "-o", str(_LIB)],
+            ["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
             check=True, capture_output=True, timeout=120,
         )
-        return True
+        os.replace(tmp, lib)  # atomic: concurrent builders never see half
+        return lib
     except (OSError, subprocess.SubprocessError):
-        return False
+        return None
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -46,9 +73,10 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not build():
+        path = build()
+        if path is None:
             return None
-        lib = ctypes.CDLL(str(_LIB))
+        lib = ctypes.CDLL(str(path))
         lib.zbpe_read_file.restype = ctypes.POINTER(ctypes.c_uint8)
         lib.zbpe_read_file.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
         lib.zbpe_free.argtypes = [ctypes.c_void_p]

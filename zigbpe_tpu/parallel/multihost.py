@@ -1,11 +1,11 @@
 """Multi-host runtime helpers.
 
-The reference is a single process (SURVEY.md §2.2). For pod-slice training
-the framework uses JAX's single-controller-per-host SPMD model: every host
+The reference is a single process (SURVEY.md §2.2). For multi-host training
+the library uses JAX's single-controller-per-host SPMD model: every host
 calls :func:`initialize`, loads only its contiguous corpus slice
 (utils/fileio.host_slice), and runs the same data-parallel chunk
 (parallel/train_dp) over a global mesh; selection verifies candidate pairs
-with exact integer psums over ICI within a host and DCN across hosts, and
+with exact integer psums across every device of every host, and
 the merge table + upper-bound table stay replicated — so merges are
 bit-identical to single-host runs (SURVEY.md §7 stage 4).
 
@@ -70,8 +70,8 @@ def train_from_files(
     """Multi-host data-parallel training entry point: every process calls
     this with the same arguments after :func:`initialize`. Each host reads
     ONLY its own devices' contiguous byte ranges from the corpus files
-    (train_dp.shard_corpus_from_files); selection psums ride ICI within a
-    host and DCN across hosts; merges are bit-identical to single-host
+    (train_dp.shard_corpus_from_files); selection psums span every host's
+    devices; merges are bit-identical to single-host
     (tests/test_multihost.py runs this 2-process on localhost)."""
     from . import train_dp as dp
 

@@ -1,9 +1,9 @@
 """Data-parallel BPE training over a jax.sharding.Mesh.
 
 The reference is single-threaded (SURVEY.md §2.2 — no parallelism exists to
-port); this module is the TPU-native invention: the corpus is sharded
-contiguously across a ``('data',)`` mesh axis, selection state is reduced
-over ICI each round, and the merge table stays replicated. Results are
+port); this module adds it: the corpus is sharded contiguously across a
+1-D ``('data',)`` mesh axis, selection state is reduced with collectives
+each round (NCCL on GPUs), and the merge table stays replicated. Results are
 **bit-identical** to single-chip training for any shard count:
 
 * Every shard keeps its slice prefix-compacted; the global token sequence is
@@ -11,7 +11,13 @@ over ICI each round, and the merge table stays replicated. Results are
 * **Boundary pairs**: shard d owns the pair (its last valid token, the first
   valid token of the next non-empty shard), fetched via tiny all_gathers —
   so every global adjacent pair is counted exactly once (SURVEY.md §7 hard
-  part 3).
+  part 3). Ownership is by the LEFT token: a pair is counted, matched and
+  merged by the shard holding its first token, and the right shard only
+  learns (through an all_gather of boundary-hit flags) that its first token
+  was consumed. Empty shards are skipped when looking for the right
+  neighbour, so ownership is well defined for any shard lengths, and the
+  global stream — the concatenation of shard prefixes — is the same stream
+  the single-device trainer holds.
 * **Selection is lazy** (same architecture as ops.core.train_chunk_lazy),
   with two layouts for the upper-bound table:
   - vocab <= LAZY_VOCAB_MAX: the table is REPLICATED; every shard pops the
@@ -22,8 +28,8 @@ over ICI each round, and the merge table stays replicated. Results are
     it is SHARDED BY ROWS over the mesh (the scaling-book recipe: shard the
     big state, exchange small messages). Pops become local-argmax +
     all_gather of (count, first, second) triples; verification is the same
-    psum of scalars; table maintenance exchanges one V-row (psum) and one
-    V-column (all_gather) per round.
+    psum of scalars; table maintenance psums the new token's exact row
+    and column counts (two V-vectors) per round.
 * **Cross-shard greedy parity**: leftmost-greedy overlap resolution
   (basic_tokenizer.zig:207-232 semantics) runs on *global* pair indices: a
   cummax parity scan locally, with a carry-in equal to the max global index
@@ -34,8 +40,7 @@ over ICI each round, and the merge table stays replicated. Results are
 * Counting uses integer psum — deterministic, so the argmax + tie-break is
   bit-stable across any device count (SURVEY.md §7 hard part 2).
 * **Compaction** is a per-shard stable sort on a 0/1 dead key — the same
-  formulation the single-chip trainer uses (XLA scatter serializes at
-  ~0.14 Ge/s on text-like indices; sort is ~3x faster).
+  formulation the single-chip trainer uses.
 * **Shrink schedule**: as shards compact, the per-shard padded capacity is
   halved between chunks (one recompile per power of two, like train.py).
 * **Checkpoint/resume** shares utils.checkpoint with the single-chip
@@ -74,18 +79,11 @@ def data_mesh(devices=None) -> Mesh:
     return Mesh(devices, (AXIS,))
 
 
-def _shard_pair_streams(tokens, layout_block=None):
+def _shard_pair_streams(tokens):
     """Per-shard (a, b, pair_valid, L, G) with the boundary pair included:
     shard d owns the pair (its last valid token, the first valid token of
-    the next non-empty shard), exchanged via tiny all_gathers.
-
-    ``layout_block``: None for the prefix-per-shard layout (the XLA merge
-    path); the Pallas kernel's row-local block size otherwise — the
-    within-shard adjacency then comes from core.pair_streams and the
-    boundary pair lands on the UNIQUE tail slot (valid token with no
-    within-shard successor; unique as long as no interior row is empty,
-    the kernel's maintained invariant). A prefix is a valid row-local
-    layout, so the row-local view is correct from the first round."""
+    the next non-empty shard), exchanged via tiny all_gathers. The shard
+    is a PAD-tailed prefix, so the boundary pair sits at slot L-1."""
     n = tokens.shape[0]
     D = jax.lax.axis_size(AXIS)
     d = jax.lax.axis_index(AXIS)
@@ -105,31 +103,25 @@ def _shard_pair_streams(tokens, layout_block=None):
     # Global pair index offset: pairs of earlier shards come first.
     G = jnp.sum(jnp.where(idxs < d, lengths, 0))
 
-    a = tokens
-    if layout_block:
-        _, b_in = core.pair_streams(tokens, layout_block)
-        tail = valid_tok & (b_in < 0)
-        b = jnp.where(tail, next_tok, b_in)
-    else:
-        j = jnp.arange(n, dtype=jnp.int32)
-        b = jnp.roll(tokens, -1).at[-1].set(PAD)
-        b = jnp.where(j == L - 1, next_tok, b)  # boundary pair at slot L-1
+    a, b = core.pair_streams(tokens)
+    j = jnp.arange(n, dtype=jnp.int32)
+    b = jnp.where(j == L - 1, next_tok, b)  # boundary pair at slot L-1
     pair_valid = (a >= 0) & (b >= 0)
     return a, b, pair_valid, L, G
 
 
-def init_ub_dp(tokens, *, vocab_size: int, layout_block=None):
+def init_ub_dp(tokens, *, vocab_size: int):
     """Replicated upper-bound table: psum of per-shard histograms
     (boundary pairs counted exactly once). Runs inside shard_map."""
     V = vocab_size
-    a, b, pair_valid, _, _ = _shard_pair_streams(tokens, layout_block)
+    a, b, pair_valid, _, _ = _shard_pair_streams(tokens)
     pid = jnp.where(pair_valid, a * V + b, V * V)
     hist = jnp.zeros((V * V,), jnp.int32).at[pid].add(1, mode="drop")
     return jax.lax.psum(hist, AXIS)
 
 
 def _dp_select_lazy(ub, rowmax, tokens, *, vocab_size: int, batch: int = 8,
-                    hot=None, layout_block=None):
+                    hot=None):
     """Lazy batch-verified selection across shards: ub (and its rowmax pop
     cache) is replicated — every shard computes the identical pop sequence
     via ops.core.select_top_pair_lazy, with the exact-count pass overridden
@@ -138,7 +130,7 @@ def _dp_select_lazy(ub, rowmax, tokens, *, vocab_size: int, batch: int = 8,
     The rowmax cache makes each pop O(V) instead of O(V^2) table reads —
     the same flat per-round cost the single-chip path has at deep vocabs."""
     V = vocab_size
-    a, b, pair_valid, _, _ = _shard_pair_streams(tokens, layout_block)
+    a, b, pair_valid, _, _ = _shard_pair_streams(tokens)
     pid_stream = jnp.where(pair_valid, a * V + b, -1)
 
     def count_fn(pa, pb):
@@ -180,8 +172,7 @@ def _owned_row_max_refresh(rm, u, row_g, row0):
     return jax.lax.dynamic_update_slice(rm, val.reshape(1), (r,))
 
 
-def _dp_select_lazy_sharded(u, rm, tokens, *, vocab_size: int, batch: int = 8,
-                            layout_block=None, hot=None, hot_batch: int = 2):
+def _dp_select_lazy_sharded(u, rm, tokens, *, vocab_size: int, batch: int = 8):
     """Lazy batch-verified selection with the ub table SHARDED BY ROWS:
     u is the local (Vp/D, V) row block and rm its exact local per-row max
     (the pop cache — each pop reads O(V) local values, not the whole
@@ -190,13 +181,13 @@ def _dp_select_lazy_sharded(u, rm, tokens, *, vocab_size: int, batch: int = 8,
     Pops are CHAIN-FREE, mirroring the single-chip selector: each shard
     takes its local top-``batch`` rows via one lax.top_k over the cache
     plus the top-2 columns of each in one batched top_k (no sequential
-    masked argmaxes), appends its local exact tie-break candidate and —
-    when ``hot`` is set — the hot row's local top-``hot_batch`` (owner
-    only) and the hot column's local best; ONE all_gather shares every
-    shard's candidate list and ONE psum of shard-local counts verifies
-    them all, written back to their owning shards. That is 2 collectives
-    per verify iteration instead of the previous 3 x batch sequential
-    pmaxes — the shape that matters when each collective rides DCN.
+    masked argmaxes) and appends its local exact tie-break candidate; ONE
+    all_gather shares every shard's candidate list and ONE psum of
+    shard-local counts verifies them all, written back to their owning
+    shards. That is 2 collectives per verify iteration instead of
+    3 x batch sequential pmaxes, so the per-iteration cost does not grow
+    with the collective latency. No hot row/column is popped: _dp_round
+    writes the new token's row and column as exact counts, not bounds.
 
     The final argmax composes local caches with three scalar pmaxes
     lexicographically by (count, global row, col) — the exact tie-break —
@@ -210,12 +201,11 @@ def _dp_select_lazy_sharded(u, rm, tokens, *, vocab_size: int, batch: int = 8,
     D = jax.lax.axis_size(AXIS)
     d = jax.lax.axis_index(AXIS)
     row0 = d * Rl
-    a, b, pair_valid, _, _ = _shard_pair_streams(tokens, layout_block)
+    a, b, pair_valid, _, _ = _shard_pair_streams(tokens)
 
     r_iota = jax.lax.broadcasted_iota(jnp.int32, (Rl,), 0)
     c_iota = jax.lax.broadcasted_iota(jnp.int32, (V,), 0)
-    per = 2 * batch + 1 + (hot_batch + 1 if hot is not None else 0)
-    nver = D * per
+    nver = D * (2 * batch + 1)
 
     def round_(state):
         u, rm = state[0], state[1]
@@ -228,23 +218,6 @@ def _dp_select_lazy_sharded(u, rm, tokens, *, vocab_size: int, batch: int = 8,
         _, cols2 = jax.lax.top_k(rows_mat, 2)
         la_parts = [jnp.repeat(row0 + rows_loc, 2)]
         lb_parts = [cols2.reshape(-1)]
-        if hot is not None:
-            hr = jnp.clip(jnp.asarray(hot, jnp.int32), 0, V - 1)
-            own_h = (hr >= row0) & (hr < row0 + Rl)
-            hrow = jax.lax.dynamic_slice(
-                u, (jnp.clip(hr - row0, 0, Rl - 1), 0), (1, V)
-            )[0]
-            _, hcols = jax.lax.top_k(hrow, hot_batch)
-            # non-owners contribute masked (-1) candidates — they verify
-            # to nothing and their owned writes are no-ops
-            la_parts.append(
-                jnp.where(own_h, jnp.broadcast_to(hr, (hot_batch,)), -1)
-            )
-            lb_parts.append(jnp.where(own_h, hcols, -1))
-            hcol = jax.lax.dynamic_slice(u, (0, hr), (Rl, 1))[:, 0]
-            hrl = jnp.argmax(hcol).astype(jnp.int32)
-            la_parts.append((row0 + hrl).reshape(1))
-            lb_parts.append(hr.reshape(1))
         # local exact tie-break candidate (top_k ties by smallest index;
         # the checked argmax ties by LARGEST (first, second))
         cl = jnp.max(rm)
@@ -323,7 +296,7 @@ def _xla_merge_shard(tokens, ta, tb, new_id):
     killed = jnp.roll(hit, 1).at[0].set(False) | ((j == 0) & killed_first)
     keep = valid_tok & ~killed
     # stable-sort compaction on a 0/1 dead key (same formulation as
-    # ops.core.apply_hits; ~3x faster than scatter on this backend)
+    # ops.core.merge_pass_multi)
     key = jnp.where(keep, jnp.int32(0), jnp.int32(1))
     _, out = jax.lax.sort(
         (key, jnp.where(keep, written, PAD)), num_keys=1, is_stable=True
@@ -333,157 +306,65 @@ def _xla_merge_shard(tokens, ta, tb, new_id):
     return out, local_hits, local_keep
 
 
-def _pallas_merge_shard(tokens, ta, tb, new_id, interpret):
-    """The fused Pallas merge on a ROW-LOCAL shard (a != b only): the
-    kernel handles all within-shard work; the boundary pair (this shard's
-    tail token, the next non-empty shard's head) is decided on the
-    PRE-pass stream and patched afterwards — for a != b the tail token
-    can never be consumed in-kernel (as a left member its successor is
-    PAD; as a right member it would have to equal b with an a before it,
-    but a boundary hit needs it to equal a != b), and symmetrically the
-    head token a prior shard kills survives its own kernel pass.
-    Returns (tokens', local_hits, local_keep, layout_bad)."""
-    from ..ops import pallas as pallas_pkg
-    from ..ops.pallas import merge as pallas_merge
-
-    LANES = 128
-    D = jax.lax.axis_size(AXIS)
-    d = jax.lax.axis_index(AXIS)
-    idxs = jnp.arange(D, dtype=jnp.int32)
-
-    valid_tok = tokens >= 0
-    L = jnp.sum(valid_tok.astype(jnp.int32))
-    lengths = jax.lax.all_gather(L, AXIS)
-    firsts = jax.lax.all_gather(tokens[0], AXIS)
-    nonempty = lengths > 0
-    after = (idxs > d) & nonempty
-    e_next = jnp.min(jnp.where(after, idxs, D))
-    next_tok = jnp.where(e_next < D, firsts[jnp.minimum(e_next, D - 1)], PAD)
-
-    # boundary decision on the PRE-pass stream
-    _, b_in = core.pair_streams(tokens, pallas_pkg.LAYOUT)
-    tail_pre = valid_tok & (b_in < 0)
-    last_tok = jnp.max(jnp.where(tail_pre, tokens, -1))
-    boundary_hit = (last_tok == ta) & (next_tok == tb) & (next_tok >= 0)
-    bhits = jax.lax.all_gather(boundary_hit, AXIS)
-    before = (idxs < d) & nonempty
-    e_prev = jnp.max(jnp.where(before, idxs, -1), initial=-1)
-    killed_first = (e_prev >= 0) & bhits[jnp.maximum(e_prev, 0)] & (L > 0)
-
-    out, stats = pallas_merge.merge_pass_pallas(
-        tokens, ta, tb, new_id, interpret=interpret
-    )
-
-    # patch the boundary hit: rewrite this shard's tail token
-    _, b_out = core.pair_streams(out, pallas_pkg.LAYOUT)
-    tail_post = (out >= 0) & (b_out < 0)
-    out = jnp.where(tail_post & boundary_hit, new_id, out)
-    # and drop the head token a prior shard's boundary hit consumed
-    o2 = out.reshape(-1, LANES)
-    row0 = o2[0]
-    shifted = jnp.concatenate([row0[1:], jnp.full((1,), PAD, out.dtype)])
-    o2 = o2.at[0].set(jnp.where(killed_first, shifted, row0))
-    out = o2.reshape(-1)
-
-    local_hits = stats[0] + boundary_hit.astype(jnp.int32)
-    local_keep = stats[1] - killed_first.astype(jnp.int32)
-    # layout flag: in-kernel drain, or the head kill left row 0 with <= 1
-    # tokens (conservative: pre-kill population <= 2)
-    layout_bad = (stats[2] <= 1) | (
-        killed_first & (jnp.sum((row0 >= 0).astype(jnp.int32)) <= 2)
-    )
-    return out, local_hits, local_keep, layout_bad
-
-
 def _dp_round(tokens, ub, rm, merges, occ, k, *, vocab_size: int,
-              sharded_ub: bool, use_pallas: bool = False,
-              interpret: bool = False):
+              sharded_ub: bool):
     """One merge round on a shard of the corpus (runs inside shard_map).
     ``rm`` is the rowmax pop cache for ub (local rows for the sharded
-    table, the full V rows replicated otherwise).
-
-    With ``use_pallas`` the shard stream lives in the kernel's row-local
-    layout and merges run through merge_pass_pallas; a == b rounds (rare;
-    cross-shard run parity needs global ranks) first recompact the shard
-    to a prefix and take the XLA path, and a round that trips the layout
-    flag recompacts in-line so the loop can continue."""
-    from ..ops import pallas as pallas_pkg
-
+    table, the full V rows replicated otherwise)."""
     V = vocab_size
-    lb = pallas_pkg.LAYOUT if use_pallas else None
 
     if sharded_ub:
         ta, tb, cnt, ub, rm = _dp_select_lazy_sharded(
-            ub, rm, tokens, vocab_size=V, layout_block=lb,
-            hot=VOCAB_START + k - 1,
+            ub, rm, tokens, vocab_size=V,
         )
     else:
         ta, tb, cnt, ub, rm = _dp_select_lazy(
             ub, rm, tokens, vocab_size=V, hot=VOCAB_START + k - 1,
-            batch=16 if V > 1024 else 8, layout_block=lb,
+            batch=16 if V > 1024 else 8,
         )
     new_id = VOCAB_START + k
-
-    if use_pallas:
-        def parity_path(t):
-            tc, _ = core.compact_stream(t)  # prefix: a valid row-local form
-            out, lh, lk = _xla_merge_shard(tc, ta, tb, new_id)
-            return out, lh, lk, jnp.bool_(False)
-
-        def kernel_path(t):
-            return _pallas_merge_shard(t, ta, tb, new_id, interpret)
-
-        tokens, local_hits, local_keep, layout_bad = jax.lax.cond(
-            ta == tb, parity_path, kernel_path, tokens
-        )
-        # restore the row-local invariant in-line when flagged anywhere
-        any_bad = jax.lax.pmax(layout_bad.astype(jnp.int32), AXIS)
-        tokens = jax.lax.cond(
-            any_bad > 0, lambda t: core.compact_stream(t)[0], lambda t: t,
-            tokens,
-        )
-    else:
-        tokens, local_hits, local_keep = _xla_merge_shard(
-            tokens, ta, tb, new_id
-        )
+    tokens, local_hits, local_keep = _xla_merge_shard(tokens, ta, tb, new_id)
 
     merges = merges.at[k].set(jnp.stack([ta, tb, new_id]))
     occ = occ.at[k].set(cnt)
 
-    # ---- ub maintenance (same derivation as train_chunk_lazy: new (X, v)
-    # pairs sit where old (b, v) pairs were, (v, X) where (v, a), (X, X)
-    # where (b, a); all capped by the global hit count) ----
-    nhits = jax.lax.psum(local_hits, AXIS)
     if sharded_ub:
+        # ---- ub maintenance: the merged bin empties; the new token's row
+        # and column are EXACT counts on the merged stream (one masked
+        # scatter each per shard, psum'd). Every other bin only loses
+        # occurrences, so it stays a sound upper bound. Bounds copied from
+        # row b / column a (the replicated path's derivation) sit at the
+        # top of a flattened deep-vocab table and make the verify loop
+        # churn; exact rows and columns leave it only real decrements. ----
         Rl = ub.shape[0]
+        Vp = Rl * jax.lax.axis_size(AXIS)
         row0 = jax.lax.axis_index(AXIS) * Rl
-        # row tb of the global table: owner contributes, psum broadcasts
-        own_tb = (tb >= row0) & (tb < row0 + Rl)
-        r_tb = jnp.clip(tb - row0, 0, Rl - 1)
-        row_tb = jax.lax.psum(
-            jnp.where(own_tb, jax.lax.dynamic_slice(ub, (r_tb, 0), (1, V))[0], 0),
+        a, b, pair_valid, _, _ = _shard_pair_streams(tokens)
+        row_x = jax.lax.psum(
+            jnp.zeros((V,), jnp.int32)
+            .at[jnp.where(pair_valid & (a == new_id), b, V)]
+            .add(1, mode="drop"),
             AXIS,
-        )  # (V,)
-        # column ta: local slice, all_gather concatenates the row blocks
-        col_loc = jax.lax.dynamic_slice(ub, (0, ta), (Rl, 1))[:, 0]
-        col_ta = jax.lax.all_gather(col_loc, AXIS).reshape(-1)  # (Vp,)
-        row_bound = jnp.minimum(row_tb, nhits)
-        col_bound = jnp.minimum(col_ta, nhits)
-        xx_bound = jnp.minimum(row_tb[ta], nhits)
-        # zero the consumed (ta, tb) bin
+        )  # (V,): counts of (new_id, v)
+        col_x = jax.lax.psum(
+            jnp.zeros((Vp,), jnp.int32)
+            .at[jnp.where(pair_valid & (b == new_id), a, Vp)]
+            .add(1, mode="drop"),
+            AXIS,
+        )  # (Vp,): counts of (v, new_id)
+        # (ta, tb) empties: leftmost-greedy leaves no adjacent (ta, tb)
         ub = _owned_entry_set(ub, ta, tb, jnp.int32(0), row0)
         # write row new_id (owner only)
         own_new = (new_id >= row0) & (new_id < row0 + Rl)
         r_new = jnp.clip(new_id - row0, 0, Rl - 1)
         cur_row = jax.lax.dynamic_slice(ub, (r_new, 0), (1, V))
         ub = jax.lax.dynamic_update_slice(
-            ub, jnp.where(own_new, row_bound[None, :], cur_row), (r_new, 0)
+            ub, jnp.where(own_new, row_x[None, :], cur_row), (r_new, 0)
         )
-        # write column new_id (every shard writes its row block's slice)
-        my_col = jax.lax.dynamic_slice(col_bound, (row0,), (Rl,))
+        # write column new_id (every shard writes its row block's slice;
+        # its (new_id, new_id) entry equals row_x[new_id])
+        my_col = jax.lax.dynamic_slice(col_x, (row0,), (Rl,))
         ub = jax.lax.dynamic_update_slice(ub, my_col[:, None], (0, new_id))
-        # (X, X) sits where an old (b, a) pair was
-        ub = _owned_entry_set(ub, new_id, new_id, xx_bound, row0)
         # rowmax cache: column new_id rose from zero, so a vector max covers
         # untouched rows; the rows changed in other columns (ta zeroed its
         # (ta, tb) bin, new_id written wholesale) refresh at their owners
@@ -491,8 +372,11 @@ def _dp_round(tokens, ub, rm, merges, occ, k, *, vocab_size: int,
         rm = _owned_row_max_refresh(rm, ub, ta, row0)
         rm = _owned_row_max_refresh(rm, ub, new_id, row0)
     else:
-        # identical derivation to the single-chip path (including the exact
-        # O(V) rowmax maintenance) — nhits is already the global psum
+        # bound maintenance as on one device (update_ub_after_merge: new
+        # (X, v) pairs sit where old (b, v) pairs were, (v, X) where
+        # (v, a), (X, X) where (b, a); all capped by the global hit count,
+        # with the exact O(V) rowmax maintenance)
+        nhits = jax.lax.psum(local_hits, AXIS)
         ub, rm = core.update_ub_after_merge(ub, rm, ta, tb, new_id, nhits, V)
 
     # psum (not a host-side sum of the gathered lengths) so the total carries
@@ -502,8 +386,7 @@ def _dp_round(tokens, ub, rm, merges, occ, k, *, vocab_size: int,
 
 
 def _dp_chunk(tokens, ub, merges, occ, k, *, vocab_size: int, max_rounds: int,
-              sharded_ub: bool, use_pallas: bool = False,
-              interpret: bool = False):
+              sharded_ub: bool):
     """Up to max_rounds rounds inside one shard_map body (while_loop).
     Returns the chunk state plus (total_len, max_shard_len) for the host's
     early-stop and shrink decisions."""
@@ -525,8 +408,7 @@ def _dp_chunk(tokens, ub, merges, occ, k, *, vocab_size: int, max_rounds: int,
         toks, u, rm, mg, oc, kk, _ = state
         toks, u, rm, mg, oc, kk, total = _dp_round(
             toks, u, rm, mg, oc, kk, vocab_size=vocab_size,
-            sharded_ub=sharded_ub, use_pallas=use_pallas,
-            interpret=interpret,
+            sharded_ub=sharded_ub,
         )
         return toks, u, rm, mg, oc, kk, total
 
@@ -539,16 +421,15 @@ def _dp_chunk(tokens, ub, merges, occ, k, *, vocab_size: int, max_rounds: int,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("vocab_size", "max_rounds", "mesh", "sharded_ub",
-                     "use_pallas", "interpret"),
+    static_argnames=("vocab_size", "max_rounds", "mesh", "sharded_ub"),
     donate_argnums=(0, 1, 2, 3),
 )
 def _dp_chunk_jit(tokens, ub, merges, occ, k, *, vocab_size, max_rounds, mesh,
-                  sharded_ub, use_pallas=False, interpret=False):
+                  sharded_ub):
     fn = jax.shard_map(
         functools.partial(
             _dp_chunk, vocab_size=vocab_size, max_rounds=max_rounds,
-            sharded_ub=sharded_ub, use_pallas=use_pallas, interpret=interpret,
+            sharded_ub=sharded_ub,
         ),
         mesh=mesh,
         in_specs=(P(AXIS), P(AXIS, None) if sharded_ub else P(), P(), P(), P()),
@@ -556,11 +437,6 @@ def _dp_chunk_jit(tokens, ub, merges, occ, k, *, vocab_size, max_rounds, mesh,
             P(AXIS), P(AXIS, None) if sharded_ub else P(),
             P(), P(), P(), P(), P(),
         ),
-        # pallas_call can't declare varying-across-mesh types on its outputs
-        # (jax.ShapeDtypeStruct has no axis info inside the kernel wrapper);
-        # replicated-vs-varying correctness is pinned by the oracle-identity
-        # and device-count-invariance tests
-        check_vma=not use_pallas,
     )
     return fn(tokens, ub, merges, occ, k)
 
@@ -629,17 +505,6 @@ def _init_ub_sharded_jit(tokens, *, vocab_size, rows_per_shard, max_row, mesh,
         mesh=mesh,
         in_specs=(P(AXIS),),
         out_specs=P(AXIS, None),
-    )
-    return fn(tokens)
-
-
-@functools.partial(jax.jit, static_argnames=("mesh",), donate_argnums=(0,))
-def _compact_shards_jit(tokens, *, mesh):
-    """Re-establish each shard's valid prefix from the kernel's row-local
-    layout (stable sort on a dead key, per shard)."""
-    fn = jax.shard_map(
-        lambda t: core.compact_stream(t)[0], mesh=mesh,
-        in_specs=(P(AXIS),), out_specs=P(AXIS),
     )
     return fn(tokens)
 
@@ -805,8 +670,6 @@ def _gather_valid_stream(tokens, D: int) -> np.ndarray:
     else:
         arr = np.asarray(tokens)
     per = arr.size // D
-    # mask-select (not a prefix slice): valid for both the prefix layout
-    # and the Pallas kernel's row-local layout (flat order == logical order)
     parts = [row[row >= 0] for row in arr.reshape(D, per)]
     return np.concatenate(parts) if parts else np.zeros(0, np.int32)
 
@@ -851,8 +714,6 @@ def train_dp_tokens(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every_chunks: int = 4,
     stats=None,
-    use_pallas: Optional[bool] = None,
-    interpret: bool = False,
 ) -> List[Merge]:
     """Run the data-parallel chunk loop on an already-sharded corpus.
 
@@ -860,13 +721,7 @@ def train_dp_tokens(
     replicated table; per-row-block psum for the sharded table —
     ``ub_max_row`` bounds the populated first-token rows, 256 for a fresh
     byte corpus). This is the compute path shared by :func:`train_dp` and
-    the multi-host entry point (parallel.multihost.train_from_files).
-
-    ``use_pallas``: run each shard's merge through the fused Pallas kernel
-    (auto: on TPU whenever the per-shard capacity is block-aligned;
-    ``interpret`` forces the interpreter for CPU-mesh validation). The
-    shard streams then live in the kernel's row-local layout between
-    chunks; shrink and checkpoint recompact first."""
+    the multi-host entry point (parallel.multihost.train_from_files)."""
     from ..utils.profiling import TimeStats
 
     stats = stats or TimeStats.null()
@@ -900,28 +755,14 @@ def train_dp_tokens(
     k_host = len(start_merges)
     total_host = total_tokens
     chunks_done = 0
-    layout_dirty = False
     while k_host < M and total_host >= 2:
         rounds = min(chunk_rounds, M - k_host)
-        from ..ops import pallas as pallas_pkg
-
-        if use_pallas is None:
-            chunk_pallas = pallas_pkg.merge_kernel_supported(per_shard_cap)
-        else:
-            # even when forced, the kernel needs a block-aligned shard
-            # capacity (the shrink schedule can halve below the block)
-            chunk_pallas = use_pallas and (
-                per_shard_cap % pallas_pkg.BLOCK == 0
-                and per_shard_cap >= pallas_pkg.BLOCK
-            )
         with stats.phase("merge_rounds"):
             tokens, ub, merges, occ, k, total, maxlen = _dp_chunk_jit(
                 tokens, ub, merges, occ, k,
                 vocab_size=vocab_size, max_rounds=rounds, mesh=mesh,
-                sharded_ub=sharded_ub, use_pallas=chunk_pallas,
-                interpret=interpret,
+                sharded_ub=sharded_ub,
             )
-            layout_dirty = layout_dirty or chunk_pallas
             ktm = np.asarray(jnp.stack([k, total, maxlen]))  # one host round-trip
             prev_k, k_host, total_host = k_host, int(ktm[0]), int(ktm[1])
             maxlen_host = int(ktm[2])
@@ -935,17 +776,9 @@ def train_dp_tokens(
                 )
 
         chunks_done += 1
-        want_shrink = (
-            shrink
-            and per_shard_cap > MIN_SHARD_CAPACITY
-            and maxlen_host <= per_shard_cap // 2
-        )
         ckpt_due = bool(
             checkpoint_dir and (chunks_done % checkpoint_every_chunks == 0)
         )
-        if layout_dirty and (want_shrink or ckpt_due):
-            tokens = _compact_shards_jit(tokens, mesh=mesh)
-            layout_dirty = False
         while (
             shrink
             and per_shard_cap > MIN_SHARD_CAPACITY

@@ -77,7 +77,7 @@ class TimeStats:
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
-    """Capture a jax.profiler device trace (TPU timeline) around a block."""
+    """Capture a jax.profiler device trace (device timeline) around a block."""
     import jax
 
     jax.profiler.start_trace(log_dir)
